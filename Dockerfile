@@ -1,5 +1,5 @@
-# Production image: CLI + library on CPU or a TPU host image.
-# For TPU serving, base on your TPU runtime image and keep the same steps.
+# Production image: CLI + library on CPU. For GPU serving, base on a
+# CUDA-enabled JAX image and keep the same steps.
 FROM python:3.12-slim
 
 RUN apt-get update && apt-get install -y --no-install-recommends \

@@ -1,9 +1,9 @@
-"""audio_pattern_detector_tpu — TPU-native streaming audio pattern detection.
+"""audio_pattern_detector_tpu — accelerator-native streaming audio pattern detection.
 
 A from-scratch JAX/XLA framework with the capabilities of the reference
 ``audio_pattern_detector`` project (streaming two-step audio pattern
 detection: FFT cross-correlation candidate search + per-strategy
-verification), re-architected for TPU:
+verification), re-architected for an accelerator:
 
 * Step-1 correlation runs as one bank-batched ``rfft·conj·irfft`` launch per
   chunk instead of a per-clip Python loop.

@@ -40,7 +40,7 @@ def _lazy_cmd_show_config(args: argparse.Namespace) -> None:
 def main() -> None:
     parser = argparse.ArgumentParser(
         prog="audio-pattern-detector-tpu",
-        description="TPU-native audio pattern detection tools",
+        description="Accelerator-native audio pattern detection tools",
     )
     subparsers = parser.add_subparsers(dest="command", help="Available commands")
 
@@ -200,8 +200,7 @@ def main() -> None:
         help=(
             "how --offline-batch packs chunks into a launch: 'scan' (default) "
             "runs them sequentially inside one launch (one-chunk memory, "
-            "per-launch overhead amortised; measured ~20%% faster per chunk "
-            "than any other formulation on TPU), 'vmap' computes them in "
+            "per-launch overhead amortised), 'vmap' computes them in "
             "parallel (higher memory). Identical results"
         ),
     )
@@ -240,8 +239,9 @@ def main() -> None:
             "scan MULTIPLE audio files concurrently, rows partitioned "
             "across N devices (data parallelism over files; N devices "
             "scan N files at full per-device rate). Output is byte-"
-            "identical to the sequential multi-file run: one JSONL block "
-            "per file, in argument order. Requires 2+ audio files; "
+            "identical to the sequential multi-file run at the same "
+            "--chunk-seconds: one JSONL block per file, in argument "
+            "order. Requires 2+ audio files; "
             "incompatible with --stdin/--debug/--profile/--offline-batch/"
             "--stream-batch/--mesh-time/--checkpoint-file"
         ),

@@ -776,23 +776,18 @@ def _scan_sharded(
     return accumulated, total_samples / sd.sample_rate
 
 
-# 120 s cap, measured twice over: with the depth-3 pipeline hiding
-# per-launch round trips, 120 s chunks stream at ~2400x (same-window:
-# 2404/2410) while 240 s drop to ~2085x; the round-3 device-only ladder
-# (docs/scaling.md "Device cost vs chunk size") explains why — the corr
-# stage is LINEAR in chunk seconds (~0.18 ms/s, worsening to ~0.28 past
-# 240 s) so launch amortisation is exhausted by 120 s and x_realtime
-# peaks there (2794x vs 2302x at 240 s). Since round 5 the flag-free
-# file path amortises launches by SCAN-BATCHING 60 s chunks instead
-# (_auto_perf_plan below — strictly dominates big chunks, docs/scaling.md
-# "Round-4 close-out of the big-chunk question"); this cap still sizes
-# the mesh-time path and debug runs, where stream batching is unavailable.
+# Big-chunk cap: the correlation stage is linear in chunk seconds, so
+# past some size a bigger chunk amortises no more launch cost. The
+# flag-free file path amortises launches by SCAN-BATCHING 60 s chunks
+# instead (_auto_perf_plan below); this cap still sizes the mesh-time
+# path and debug runs, where stream batching is unavailable. The value
+# has not been measured on the GPU.
 AUTO_PERF_MAX_CHUNK_SECONDS = 120
 
 # Launch-amortisation width for the flag-free file path: B consecutive
 # 60 s chunks per device launch via the in-launch sequential scan — the
 # same width the `--stream-batch 8` / `--offline-batch` recommendations
-# use (21.2-21.9 ms/chunk at every B on TPU, scripts/dev/batch_probe.py).
+# use. The value has not been measured on the GPU.
 AUTO_PERF_STREAM_BATCH = 8
 
 
@@ -851,16 +846,13 @@ def _auto_perf_plan(
 ) -> tuple[int, int]:
     """File-mode default launch plan: (seconds_per_chunk, stream_batch).
 
-    Round-4 measurement (docs/scaling.md, "Round-4 close-out of the
-    big-chunk question"): scan-batching B x 60 s chunks in one launch
-    strictly dominates big chunks as the launch amortiser — it pays the
-    per-launch round trip once per batch while KEEPING the 60 s
-    overlap-save geometry the FFT segment sweep picked (big chunks
-    amortise the launch but inflate the corr+mask slope). So since
-    round 5 the flag-free file path keeps the 60 s default chunk and
-    batches consecutive chunks per launch, instead of enlarging chunks
-    to 120 s (the pre-round-5 policy, still used by _auto_perf_chunk_
-    seconds for mesh-time/debug runs). Results are chunk-size- AND
+    Scan-batching B x 60 s chunks in one launch pays the per-launch
+    cost once per batch while KEEPING the 60 s overlap-save geometry
+    (big chunks amortise the launch but inflate the correlation and
+    candidate-scan work per chunk). So the flag-free file path keeps the
+    60 s default chunk and batches consecutive chunks per launch,
+    instead of enlarging chunks (_auto_perf_chunk_seconds still sizes
+    mesh-time/debug runs). Results are chunk-size- AND
     batch-invariant (tests/test_stream_batch.py, tests/test_offline_scan.py).
 
     The batch width is balanced across the file's launches so a short
@@ -923,7 +915,7 @@ def match_pattern(
     in the streaming loop (identical results; emission deferred to batch
     boundaries) — the live-stream launch amortiser.
     ``chunk_seconds_auto_perf`` (the CLI's file-mode default) applies the
-    measured-best launch plan for whole files: 60 s chunks scan-batched
+    default launch plan for whole files: 60 s chunks scan-batched
     up to 8 per launch, width balanced across the file's launches
     (_auto_perf_plan; an explicit ``stream_batch`` keeps the caller's
     width, debug/mesh-time runs keep big-chunk sizing).
@@ -1460,7 +1452,7 @@ def _match_pattern_file(
             audio_source, pattern_clips, sr
         )
         # Only upgrade the default: an explicit --stream-batch keeps the
-        # user's width (the 60 s chunk from the plan is the measured-best
+        # user's width (the 60 s chunk from the plan is the default
         # geometry for any width).
         if opts.stream_batch == 1:
             opts.stream_batch = auto_batch

@@ -2,14 +2,12 @@
 
 The reference's concurrency model is one OS process per stream
 (reference: audio_pattern_detector.py:295-331 is a single sequential
-loop; fan-out is left to the user). On a TPU chip that wastes the
+loop; fan-out is left to the user). On an accelerator that wastes the
 device. ``MultiStreamSession`` batches one chunk from every active
 stream into ONE vmapped device launch per round via the pattern bank's
 independent-lookback batch path
 (``PatternBank.dispatch_chunks_batch(prev_tails=...)``), so a single
-chip serves N live stations at the per-stream chunk cadence. Measured
-on-chip (64-clip bank): 8 concurrent streams sustain ~1700× realtime
-aggregate with pipelined rounds — >200× headroom per station.
+device serves N live stations at the per-stream chunk cadence.
 
 Results are bit-identical to running each stream through the serial
 engine: per-stream lookback, timestamp algebra, and flagged-row
@@ -66,8 +64,7 @@ class MultiStreamSession:
         # Rows are independent in BOTH programs (the scan body carries no
         # state across rows — each is a complete fused step), so the mode
         # is purely an execution schedule. Default: "scan" single-device
-        # (measured ~21.5 vs ~26 ms/chunk for vmap on TPU,
-        # scripts/dev/batch_inflation_ab.py); "vmap" when a mesh shards
+        # (one chunk's intermediate memory); "vmap" when a mesh shards
         # the rows (GSPMD needs the parallel batch axis).
         if batch_mode == "scan" and mesh is not None:
             raise ValueError(
@@ -91,8 +88,7 @@ class MultiStreamSession:
         # count: without them, a 64-slot server at low round occupancy
         # (fleet arrival transients, live paced stations) burns a full
         # 64 rows of FFT work and payload upload to advance 2-3 real
-        # chunks (measured: serve64 aggregate 129x while device-only
-        # held ~2800x, scripts/dev/serve_probe.py round 5). Each width
+        # chunks. Each width
         # is one compiled program, shape-keyed; PatternServer.warmup
         # pre-compiles the ladder so no width compiles mid-service.
         self._tile_widths: list[int] | None = None
@@ -195,8 +191,7 @@ class MultiStreamSession:
         Synchronous convenience: for faster-than-realtime driving, use
         :meth:`dispatch` / :meth:`collect` to keep several rounds in
         flight (the per-round launch + transfer + unpack otherwise
-        serialize against device compute; measured on-chip, 8 streams:
-        814× aggregate synchronous → 1698× with 3 rounds in flight).
+        serialize against device compute).
         """
         return self.collect(self.dispatch(chunks))
 

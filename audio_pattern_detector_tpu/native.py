@@ -9,7 +9,7 @@ native-helper/native_helper.pyi): ``find_peaks``, ``resample``,
 Sequential/branchy ops dispatch to the C++ library
 (csrc/apd_native.cpp, built to ``_apd_native.so`` by ``csrc/Makefile``);
 FFT-based resampling stays in numpy f64 (ops/hostref.py) — on this
-framework the FFT hot path lives on the TPU, not the host. When the shared
+framework the FFT hot path lives on the device, not the host. When the shared
 library is absent everything falls back to the exact numpy
 implementations, so the package works source-only.
 """

@@ -3,5 +3,5 @@
 ``hostref`` holds exact host-side (numpy, f64) implementations used for
 clip preparation at init time, QA/differential testing, and rare-overflow
 fallbacks. The sibling modules (`correlate`, `loudness`, `peaks`, `verify`)
-hold the JAX/TPU device kernels that carry the streaming hot path.
+hold the JAX device code that carry the streaming hot path.
 """

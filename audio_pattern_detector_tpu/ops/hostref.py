@@ -508,3 +508,40 @@ def fft_correlate_1d(
     # Reorder to 'full' layout: index k corresponds to lag k - (m - 1).
     out = np.concatenate((z[size - (m - 1):] if m > 1 else z[:0], z[: n]))
     return out.astype(np.float32)
+
+
+# ── Marker-tone spectra ──────────────────────────────────────────────
+
+
+def marker_spectra(
+    section: NDArray[np.floating[Any]],
+    pos: NDArray[np.integer[Any]],
+    clip_len: int,
+    sample_rate: int,
+) -> tuple[NDArray[np.float64], NDArray[np.float64] | None]:
+    """f64 reference of ``ops.verify.marker_spectra`` for one clip.
+
+    For each candidate 'full' index in ``pos`` (K,): |rfft| of the
+    Hann-windowed [left flank | match | right flank] segments, (K, 3,
+    m//2+1), and of the matched segment's 25 ms frames, (K, F, wl//2+1)
+    (None when the clip is shorter than one frame). Same window geometry
+    as the device verifier: the section is zero-padded by ``m + 8`` on
+    each side and the 3m slice start clipped into it.
+    """
+    from audio_pattern_detector_tpu.ops.tone import frame_grid
+
+    m = clip_len
+    pad = m + 8
+    secp = np.pad(np.asarray(section, dtype=np.float64), (pad, pad))
+    lag = np.asarray(pos, dtype=np.int64) - (m - 1)
+    start = np.clip(lag + 8, 0, len(secp) - 3 * m)
+    seg3 = np.stack([secp[s : s + 3 * m] for s in start]).reshape(-1, 3, m)
+    whole = np.abs(np.fft.rfft(seg3 * np.hanning(m), axis=-1))
+    wl, hop, f_count = frame_grid(m, sample_rate)
+    if f_count == 0:
+        return whole, None
+    match = seg3[:, 1, :]
+    frames = np.stack(
+        [match[:, s0 : s0 + wl] for s0 in range(0, f_count * hop, hop)], axis=1
+    )
+    return whole, np.abs(np.fft.rfft(frames * np.hanning(wl), axis=-1))

@@ -102,10 +102,9 @@ def plateau_run_mask(
     neighbours.
 
     The single source of truth for the exactness-critical comparison
-    chain: :func:`short_run_local_maxima_mask` (full rows), the Pallas
-    candidate scan (ops/pallas_peaks.py), and the Pallas greedy's gathered
-    windows (models/bank.py) all call this with their own shift/edge
-    plumbing. ``fin_p1``/``fin_p2`` assert the right-side comparison
+    chain: :func:`short_run_local_maxima_mask` (full rows) and
+    :func:`greedy_survivors_rederive`'s gathered windows both call this
+    with their own shift/edge plumbing. ``fin_p1``/``fin_p2`` assert the right-side comparison
     partners are real samples (not edge fill); ``left_ok`` excludes
     length-3 runs touching the left array edge.
     """
@@ -176,9 +175,8 @@ def topk_sparse(
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Hierarchical top-k over a mostly--inf row: (height, pos), both (G, k).
 
-    ``lax.top_k`` over the full (G, L≈500k) correlation is the single most
-    expensive op of the lean program on the target backend (~13 ms/chunk
-    measured standalone). This runs in three cheap stages instead:
+    ``lax.top_k`` over the full (G, L≈500k) correlation reads and sorts
+    every lane. This runs in three cheap stages instead:
 
     1. block-max over (G, nb, block) — one streaming pass that XLA fuses
        with the candidate-mask pass producing ``scored``;
@@ -205,9 +203,9 @@ def topk_sparse(
     nb = -(-L // block)
     if k * block * 4 >= nb * block:
         # Wide tiers (the full/rich path's k_detect ~ L/m lanes) would
-        # expand most blocks anyway — measured slower than one flat top_k
-        # (73 ms vs 14 ms for k≈1000 over 500k on-chip). Hierarchy pays
-        # only when the expansion is a small fraction of the row.
+        # expand most blocks anyway, so one flat top_k does less work.
+        # Hierarchy pays only when the expansion is a small fraction of
+        # the row.
         height, pos = jax.lax.top_k(scored, k)
         return height, pos.astype(jnp.int32)
     pad = nb * block - L
@@ -243,7 +241,7 @@ def select_candidates(
 # Read at TRACE time: it only takes effect for programs traced after the
 # env change — the module-level jitted class programs cache per process,
 # so set it before the first dispatch (same as APD_GREEDY_UNROLL /
-# APD_MERGED_IRFFT / APD_MARKER_GEMM).
+# APD_MERGED_IRFFT).
 import os as _os
 
 
@@ -430,9 +428,7 @@ def greedy_survivors_blockwise(
 
     Cost: the block-max reduce is one streaming pass that XLA fuses with
     the candidate-mask pass producing ``scored``; each round then touches
-    only (G, nb) + three (G, block) gathers. Measured equal to the
-    topk_sparse(16) + greedy path it replaces (~within launch-cost noise,
-    scripts/dev/block_greedy_proto.py), while exact for dense rows.
+    only (G, nb) + three (G, block) gathers. Exact for dense rows.
     """
     G, L = scored.shape
     nb = -(-L // block)
@@ -473,9 +469,8 @@ def greedy_survivors_from_blocks(
     positions, with positions ascending and every non-(-inf) lane's
     position inside the block's range (halo/padding lanes must come back
     -inf). This lets callers that never materialise the (G, L) scored
-    array — the single-pass Pallas candidate scan keeps only block
-    maxima — run the exact greedy by re-deriving candidates on gathered
-    windows per round (models/bank.py::_lean_group_packed_pallas).
+    array (greedy_survivors_rederive) run the exact greedy by re-deriving
+    candidates on gathered windows per round.
 
     Same returns and exactness contract as greedy_survivors_blockwise.
     ``unroll`` selects statically-unrolled rounds over the
@@ -509,8 +504,7 @@ def greedy_survivors_from_blocks(
         # Invariant check: bwork is maintained as exactly the suppressed
         # candidate max per block, so the gathered max must equal the seed
         # bitwise. A mismatch means the caller's block summary disagrees
-        # with its gather (e.g. the Pallas raw-vs-quotient rounding edge,
-        # guarded upstream but belt-and-braces here): refuse the round for
+        # with its gather (a caller bug): refuse the round for
         # that row — it keeps nothing, suppresses nothing, its bwork stays
         # finite, and the loop exits at r_max with overflow=True, routing
         # the row to the exact rerun instead of keeping a wrong survivor.
@@ -541,9 +535,9 @@ def greedy_survivors_from_blocks(
 
     if unroll:
         # Statically-unrolled rounds: identical per-round semantics, no
-        # data-dependent loop construct (a lax.while_loop carries ~2-3 ms
-        # fixed cost per launch on the target runtime and blocks XLA's
-        # cross-chunk pipelining inside scan-batched programs). All r_max
+        # data-dependent loop construct (a lax.while_loop reads its
+        # predicate back every iteration and blocks XLA's cross-chunk
+        # pipelining inside scan-batched programs). All r_max
         # rounds always execute; exhausted rows pass through as no-ops
         # (alive=False), identical to the while_loop's post-exit state.
         bwork, kept_pos, kept_h = bwork0, kept_pos0, kept_h0
@@ -588,10 +582,8 @@ def greedy_survivors_rederive(
     irfft): the exact :func:`plateau_run_mask` comparison chain on the
     exact values, so gathered maxima equal the block summary bitwise and
     :func:`greedy_survivors_from_blocks`' seed invariant holds by
-    construction. This is the structure the Pallas candidate scan uses
-    (models/bank.py::_lean_group_packed_pallas) minus Mosaic and minus
-    its raw-vs-quotient rounding edge — everything here reads the
-    normalised array every tier compares.
+    construction. Everything here reads the normalised array every tier
+    compares.
 
     Callers must apply the same ``long_plateau_present`` escape they
     would pair with :func:`short_run_local_maxima_mask`: runs of length

@@ -180,11 +180,9 @@ def verify_normal(
     window = slices[:, :, consts.win_lo : consts.win_hi]  # (G, K, hi-lo)
     # Sparse-table window max: one reduce_window builds f[i] = max over
     # [i, i + 2^K), then two static-index lookups cover each resample bin
-    # exactly (bin max = max(f[a], f[b])) — no element gather. A single
-    # reduce_window measures ~2.7 ms faster in-context than K rounds of
-    # shifted max on this backend (per-op fixed cost dominates the tiny
-    # byte traffic; bitwise-identical — scripts/dev/verify_probe.py
-    # sub_opcount). seg_a/seg_b always index the VALID region (every bin
+    # exactly (bin max = max(f[a], f[b])) — no element gather, and one op
+    # where K rounds of shifted max would take K (bitwise-identical).
+    # seg_a/seg_b always index the VALID region (every bin
     # width >= 2^K), so the -inf tail pad is shape-only.
     win = 1 << consts.k_level
     f = jax.lax.reduce_window(
@@ -268,57 +266,53 @@ def build_marker_verify_consts(
     )
 
 
-# DFT-GEMM only pays below this transform length: the baked cos/sin
-# matrix is ~n*(n+2)*4 bytes (67 MB at 4096, growing quadratically — a
-# 2 s marker at 44.1 kHz would bake a ~31 GB constant and OOM at trace
-# time), and the op-count argument only holds where the matrix is small
-# against the fixed per-FFT-op cost. Flagship marker shapes (0.25 s at
-# 8 kHz -> 2000; 25 ms frames -> 200-1102) sit comfortably below.
-_GEMM_MAX_N = 4096
+def marker_windows(
+    section: jnp.ndarray,  # (S,) normalised, NaN-scrubbed section
+    pos: jnp.ndarray,  # (G, K) candidate 'full' indices
+    consts: MarkerVerifyConsts,
+) -> tuple[jnp.ndarray, jnp.ndarray | None]:
+    """The Hann-windowed slices the marker verifier transforms.
 
-
-def _rfft_power_gemm(x: jnp.ndarray, n: int) -> jnp.ndarray:
-    """|rfft(x)|^2 along the last axis as one real DFT GEMM on the MXU.
-
-    Replaces a small-length rfft op with a single dot_general against the
-    baked (n, 2F) cos/sin matrix — an op-count reducer for this backend,
-    where each FFT op carries a fixed per-op cost far above these shapes'
-    byte traffic. Not bitwise-identical to the backend FFT (different
-    summation order); the marker verifier is decision-level exact, not
-    spectrum-level, so threshold decisions tolerate this (differentially
-    tested against the host model and the corpus either way). Callers
-    gate on ``n <= _GEMM_MAX_N``.
+    Returns ``(whole, frames)``: ``whole`` (G, K, 3, m) is the
+    [left flank | match | right flank] slice, each segment multiplied by
+    the whole-window Hann; ``frames`` (G, K, F, wl) is the matched
+    segment's 25 ms frames times the frame Hann, or None when the clip is
+    shorter than one frame.
     """
-    f = n // 2 + 1
-    idx = np.arange(n, dtype=np.float64)[:, None] * np.arange(f, dtype=np.float64)
-    ang = -2.0 * np.pi * idx / n
-    mat = jnp.asarray(
-        np.concatenate([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
-    )
-    proj = jax.lax.dot_general(
-        x.reshape(-1, n),
-        mat,
-        (((1,), (0,)), ((), ())),
-        precision=jax.lax.Precision.HIGHEST,
-    )
-    re, im = proj[:, :f], proj[:, f:]
-    return (re * re + im * im).reshape(x.shape[:-1] + (f,))
+    g, k = pos.shape
+    m = consts.clip_len
+    # match_start = peak - m + 1 in section coordinates equals the lag
+    # (reference: audio_pattern_detector.py:650-653); left flank + match +
+    # right flank form one contiguous [lag - m, lag + 2m) slice.
+    lag = pos - (m - 1)
+    secp = jnp.pad(section, (m + _PAD, m + _PAD))
+    start = jnp.clip(lag + _PAD, 0, secp.shape[0] - 3 * m)
+    seg3 = slice_shared_windows(secp, start, 3 * m).reshape(
+        g, k, 3, m
+    )  # [left|match|right]
+    if consts.frame_count == 0:
+        return seg3 * consts.hann_whole, None
+    seg_match = seg3[:, :, 1, :]  # (G, K, m)
+    wl = consts.frame_len
+    frames = jnp.stack(
+        [seg_match[:, :, s0 : s0 + wl] for s0 in consts.frame_starts],
+        axis=2,
+    ) * consts.hann_frame  # (G, K, F, wl) — static slices, no gather
+    return seg3 * consts.hann_whole, frames
 
 
-def _marker_gemm_enabled() -> bool:
-    """DFT-GEMM marker spectra: default ON for TPU backends, off elsewhere.
-
-    Same-window A/B on the flagship lean step: 23.75 ms (backend FFT) vs
-    22.21 ms (GEMM) — scripts/dev/marker_gemm_probe.py. On CPU the O(n^2)
-    DFT GEMM is slower than the FFT, so the default follows the backend;
-    APD_MARKER_GEMM=1/0 forces either way.
-    """
-    import os
-
-    env = os.environ.get("APD_MARKER_GEMM")
-    if env is not None:
-        return env == "1"
-    return jax.default_backend() == "tpu"
+def marker_spectra(
+    section: jnp.ndarray,
+    pos: jnp.ndarray,
+    consts: MarkerVerifyConsts,
+) -> tuple[jnp.ndarray, jnp.ndarray | None]:
+    """|rfft| of :func:`marker_windows`' slices: (G, K, 3, m//2+1) and
+    (G, K, F, wl//2+1) (or None). The verifier's only spectra."""
+    whole, frames = marker_windows(section, pos, consts)
+    spec = jnp.abs(jnp.fft.rfft(whole, axis=-1))
+    if frames is None:
+        return spec, None
+    return spec, jnp.abs(jnp.fft.rfft(frames, axis=-1))
 
 
 def verify_marker(
@@ -329,31 +323,14 @@ def verify_marker(
 ) -> jnp.ndarray:
     """Returns accept mask (G, K)."""
     g, k = pos.shape
-    m = consts.clip_len
-    use_gemm = _marker_gemm_enabled() and m <= _GEMM_MAX_N
+    spec, fspec = marker_spectra(section, pos, consts)
 
-    # match_start = peak - m + 1 in section coordinates equals the lag
-    # (reference: audio_pattern_detector.py:650-653); left flank + match +
-    # right flank form one contiguous [lag - m, lag + 2m) slice.
-    lag = pos - (m - 1)
-    secp = jnp.pad(section, (m + _PAD, m + _PAD))
-    start = jnp.clip(lag + _PAD, 0, secp.shape[0] - 3 * m)
-    seg3 = slice_shared_windows(secp, start, 3 * m).reshape(
-        g, k, 3, m
-    )  # [left|match|right]
-
-    # Whole-window Hann spectra for all three segments. argmax and the
-    # purity ratios only need the POWER spectrum (squares of non-negative
-    # magnitudes preserve order), so the GEMM path skips the sqrt.
-    if use_gemm:
-        power = _rfft_power_gemm(seg3 * consts.hann_whole, m)  # (G,K,3,F2)
-        match_arg = jnp.argmax(power[:, :, 1, :], axis=-1)
-    else:
-        spec = jnp.abs(jnp.fft.rfft(seg3 * consts.hann_whole, axis=-1))
-        power = spec * spec
-        # argmax on the magnitude, not its square: squaring can collapse
-        # near-tied f32 magnitudes and shift the tie-break index.
-        match_arg = jnp.argmax(spec[:, :, 1, :], axis=-1)
+    # Whole-window spectra for all three segments. The purity ratios only
+    # need the POWER spectrum; argmax runs on the magnitude, not its
+    # square: squaring can collapse near-tied f32 magnitudes and shift the
+    # tie-break index.
+    power = spec * spec
+    match_arg = jnp.argmax(spec[:, :, 1, :], axis=-1)
     energy = jnp.sum(power, axis=-1)  # (G, K, 3)
     band_energy = jnp.sum(
         jnp.where(as_mask(consts.band_whole)[:, None, None, :], power, 0.0), axis=-1
@@ -371,20 +348,9 @@ def verify_marker(
 
     # Framed 25 ms STFT over the matched segment only (flank metrics use the
     # whole-window purity alone; reference: audio_pattern_detector.py:686-693).
-    if consts.frame_count > 0:
-        seg_match = seg3[:, :, 1, :]  # (G, K, m)
-        wl = consts.frame_len
-        frames = jnp.stack(
-            [seg_match[:, :, s0 : s0 + wl] for s0 in consts.frame_starts],
-            axis=2,
-        ) * consts.hann_frame  # (G, K, F, wl) — static slices, no gather
-        if _marker_gemm_enabled() and wl <= _GEMM_MAX_N:
-            fpow = _rfft_power_gemm(frames, wl)
-            ffreq_arg = jnp.argmax(fpow, axis=-1)
-        else:
-            fspec = jnp.abs(jnp.fft.rfft(frames, axis=-1))
-            fpow = fspec * fspec
-            ffreq_arg = jnp.argmax(fspec, axis=-1)
+    if fspec is not None:
+        fpow = fspec * fspec
+        ffreq_arg = jnp.argmax(fspec, axis=-1)
         fenergy = jnp.sum(fpow, axis=-1)  # (G, K, F)
         nonzero = fenergy > 0.0
         fband = jnp.sum(

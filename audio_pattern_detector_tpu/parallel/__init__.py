@@ -7,11 +7,11 @@ This package distributes exactly that algebra over a ``jax.sharding.Mesh``:
 
 * ``sequence`` — a long stream is sharded along time; each device prepends
   a halo of ``sliding_window`` seconds received from its left neighbour
-  over ICI (``ppermute``), making every device's section identical to the
+  (``ppermute``), making every device's section identical to the
   serial engine's chunk section. A ``stream`` mesh axis adds data
   parallelism over independent streams.
 * ``bankshard`` — the clip bank (the "model" dimension) is sharded across
-  devices when it outgrows one chip's HBM.
+  devices when it outgrows one device's memory.
 """
 
 from audio_pattern_detector_tpu.parallel.bankshard import BankShardedBank

@@ -1,9 +1,9 @@
 """Bank sharding: the clip bank distributed across devices (TP analogue).
 
 The clip bank is the framework's "model": precomputed conjugate spectra
-(G, N//2+1), self-correlation curves, and verification constants. One v5e
-chip holds ~thousands of 60 s-chunk clip spectra; beyond that — or to cut
-per-chunk latency — the bank's leading (G) axis shards across a mesh axis.
+(G, N//2+1), self-correlation curves, and verification constants. When a
+bank outgrows one device's memory — or to cut per-chunk latency — the
+bank's leading (G) axis shards across a mesh axis.
 
 Correlation against a *replicated* section is embarrassingly parallel in
 G: every device correlates the shared section against its clip shard and
@@ -213,9 +213,7 @@ class BankShardedBank:
         Rides the serial path's shared helpers (section assembly, packed
         int16-pair upload, fused single-transfer payload, dispatch-time
         d2h prefetch) with the GSPMD-placed constants substituted — the
-        jitted program partitions itself across the bank axis. The Pallas
-        candidate scan is forced off: its kernel has no GSPMD partitioning
-        rule for a sharded G axis."""
+        jitted program partitions itself across the bank axis."""
         bank = self._bank
         dispatched = []
         for sw in bank.classes:
@@ -225,7 +223,7 @@ class BankShardedBank:
             with self.mesh:
                 flat = bank._dispatch_section(
                     sw, section, n_valid,
-                    group_consts=self._sharded[sw], pallas=False,
+                    group_consts=self._sharded[sw],
                 )
             dispatched.append((sw, flat, raw_section))
         return dispatched

@@ -27,17 +27,7 @@ def make_mesh(
         raise ValueError(
             f"mesh needs {total} devices, only {len(devices)} available"
         )
-    try:
-        # Topology-aware ordering: the per-chunk ppermute halo exchange
-        # rides the "time" axis every slab, so mesh neighbours should be
-        # ICI-adjacent on real multi-chip slices, not enumeration-order.
-        from jax.experimental import mesh_utils
-
-        grid = mesh_utils.create_device_mesh(
-            shape, devices=devices[:total], allow_split_physical_axes=True
-        )
-    except Exception:
-        # Virtual/CPU device sets (tests, dryrun) have no topology to
-        # respect; plain enumeration order is correct there.
-        grid = np.asarray(devices[:total]).reshape(shape)
+    # Plain enumeration order: the devices are joined all to all, so no
+    # ordering puts mesh neighbours closer than any other pair.
+    grid = np.asarray(devices[:total]).reshape(shape)
     return Mesh(grid, tuple(axis_sizes.keys()))

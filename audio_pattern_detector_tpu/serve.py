@@ -2,8 +2,8 @@
 
 The reference's deployment model is one OS process per stream, piped
 over stdin (reference: match.py:215-283 stdin wrapper; cli.py --stdin).
-On a TPU chip that wastes the device — each process would hold its own
-compiled program and the chip idles between one stream's chunks. This
+On an accelerator that wastes the device — each process would hold its
+own compiled program and the device idles between one stream's chunks. This
 server keeps ONE process and ONE compiled batch program: up to
 ``max_streams`` concurrent TCP clients each send a WAV stream in
 exactly the ``match --stdin`` wire format (mono 16/32-bit PCM or
@@ -279,8 +279,8 @@ class PatternServer:
         self._stat_samples = 0
         self._stat_detections = 0
         # Cumulative wall time per event-loop phase (seconds) — cheap
-        # monotonic bookkeeping, read by scripts/dev/serve_probe.py to
-        # attribute per-round cost on the deployment surface.
+        # monotonic bookkeeping, read by perf probes to attribute
+        # per-round cost on the deployment surface.
         self.phase_seconds: dict[str, float] = {
             "select": 0.0,
             "sockets": 0.0,
@@ -575,8 +575,7 @@ class PatternServer:
             # int16 fast path: hand the raw samples through — the batch
             # dispatch bit-packs int16 pairs into f32 upload lanes with a
             # zero-cost view (ops/packing.py semantics), so the f32
-            # decode here would be pure waste (~30 ms/width-8 round of
-            # host work, scripts/dev/serve_probe.py). Device results are
+            # decode here would be pure host work. Device results are
             # bit-identical either way (the in-graph unpack IS the
             # decode: int16 -> f32 exact).
             samples: NDArray[np.float32] = np.frombuffer(
@@ -599,9 +598,8 @@ class PatternServer:
             # mid-chunk: a width-B device round costs the same at any
             # slot occupancy, so dispatching a 2-of-8 round wastes ~4x
             # device time vs waiting a few ms for the stragglers.
-            # Measured (scripts/dev/serve_probe.py, width 8, 4 chunks
-            # per stream): 11 rounds -> 4-5 full rounds. Live streams at
-            # chunk cadence lose at most dispatch_defer_ms of latency.
+            # Live streams at chunk cadence lose at most
+            # dispatch_defer_ms of latency.
             # Only streams actively DELIVERING bytes count as
             # stragglers (last_rx within _STRAGGLER_RX_HORIZON): holding
             # a round only pays off when the straggler will finish its
@@ -614,8 +612,7 @@ class PatternServer:
             # actively-uploading fresh connection DOES hold the round:
             # at fleet start all N clients are mid-header/mid-chunk for
             # a few ms, and dispatching 1-of-N rounds then wastes ~N x
-            # device time (measured: aggregate 1747x -> 316x when a
-            # header_done guard stopped counting them).
+            # device time.
             now = time.monotonic()
             waiting = any(
                 not c.dead and not c.ended and not c.eof
@@ -691,10 +688,19 @@ class PatternServer:
                 conn.pending -= 1
                 if conn.dead:
                     continue
-                for clip_name, times in results[slot].items():
-                    self._stat_detections += len(times)
-                    for t in times:
-                        conn.callback(clip_name, t)
+                # Timestamp order within the chunk, as match --stdin
+                # emits (AudioPatternDetector.find_clip_in_audio).
+                matches = sorted(
+                    (
+                        (t, clip_name)
+                        for clip_name, times in results[slot].items()
+                        for t in times
+                    ),
+                    key=lambda x: x[0],
+                )
+                self._stat_detections += len(matches)
+                for t, clip_name in matches:
+                    conn.callback(clip_name, t)
 
     def _finish_streams(self) -> None:
         now = time.monotonic()

@@ -1,7 +1,7 @@
 """Audio I/O and host DSP utilities.
 
 Functional parity with the reference's audio utility layer
-(reference: audio_pattern_detector/audio_utils.py), re-homed for the TPU
+(reference: audio_pattern_detector/audio_utils.py), re-homed for this
 framework: all decode paths produce float32 mono PCM in [-1, 1] and the
 FFT resampler delegates to the hostref exact implementation.
 """

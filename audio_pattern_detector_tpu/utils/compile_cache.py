@@ -3,45 +3,49 @@
 The reference project's native-helper exists largely to cut container
 cold-start (reference: docs/native-helper.md:9-15). The analogous
 cold-start cost here is XLA compilation: without a persistent cache every
-CLI process recompiles the bank programs (measured on-chip: a one-pattern
-``match`` run drops 24.8 s → 17.8 s wall with a warm cache; larger banks
-save proportionally more). JAX serializes compiled executables to a
-directory; subsequent processes with identical programs load instead of
-compiling.
+CLI process recompiles the bank programs. JAX serializes compiled
+executables to a directory; later processes with identical programs load
+instead of compiling.
 
-``APD_COMPILE_CACHE`` controls it: unset → ``~/.cache/
-audio-pattern-detector-tpu/xla``; a path → that directory; ``off``/``0``
-→ disabled. Failures are swallowed — the cache is an optimisation and
-must never fail a run.
+Where the cache lives:
+
+* ``JAX_COMPILATION_CACHE_DIR`` set → JAX reads it itself and this module
+  sets nothing;
+* otherwise one fixed directory inside the checkout, ``<repo>/.jax_cache``
+  (a fixed path, because the path is part of the cache key);
+* ``APD_COMPILE_CACHE=off`` (or ``0``/``none``/empty) → no cache.
 """
 
 from __future__ import annotations
 
 import os
 
-_DEFAULT_DIR = os.path.join(
-    os.path.expanduser("~"), ".cache", "audio-pattern-detector-tpu", "xla"
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
 )
 
 
 def enable_persistent_cache() -> str | None:
-    """Point JAX's compilation cache at a persistent directory.
+    """Point JAX's compilation cache at its persistent directory.
 
-    Returns the cache directory, or None when disabled/unavailable.
-    Safe to call any time before the first compilation; idempotent.
+    Returns the cache directory in use, or None when disabled. Safe to
+    call any time before the first compilation; idempotent.
     """
-    loc = os.environ.get("APD_COMPILE_CACHE")
-    if loc is not None and loc.strip().lower() in ("off", "0", "none", ""):
+    env_dir = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env_dir:
+        return env_dir
+    switch = os.environ.get("APD_COMPILE_CACHE")
+    if switch is not None and switch.strip().lower() in ("off", "0", "none", ""):
         return None
-    path = loc or _DEFAULT_DIR
     try:
-        os.makedirs(path, exist_ok=True)
-        import jax
-
-        jax.config.update("jax_compilation_cache_dir", path)
-        # Default threshold (1 s) skips small programs; the per-class
-        # detection programs routinely sit near it, so lower the bar.
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-        return path
-    except Exception:  # pragma: no cover - depends on runtime support
+        os.makedirs(DEFAULT_DIR, exist_ok=True)
+    except OSError:  # read-only checkout: run uncached
         return None
+    import jax
+
+    jax.config.update("jax_compilation_cache_dir", DEFAULT_DIR)
+    # Default threshold (1 s) skips small programs; the per-class
+    # detection programs routinely sit near it, so lower the bar.
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    return DEFAULT_DIR

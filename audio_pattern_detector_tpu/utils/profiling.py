@@ -1,7 +1,7 @@
 """Per-run performance counters and optional device tracing.
 
 The reference has no instrumentation (SURVEY.md §5: tracing/profiling —
-none); this subsystem is the TPU build's observability for throughput:
+none); this subsystem is the device build's observability for throughput:
 per-stage wall-clock accounting (host read/decode, device dispatch, result
 collection + emission) and an optional ``jax.profiler`` trace directory
 for XLA-level analysis.

@@ -1,13 +1,13 @@
 // apd_native: C++ host-side numeric runtime.
 //
 // The reference implements its host numerics in a Rust cdylib
-// (reference: native-helper/src/lib.rs); this is the TPU framework's
+// (reference: native-helper/src/lib.rs); this is the framework's
 // equivalent for the ops that belong on the host: the inherently
 // sequential BS.1770 K-weighting IIR for init-time clip preparation, the
 // branchy scipy-compatible peak machinery used by the exactness fallback,
 // Pearson/Simpson, window-max resampling, and PCM sample-format
 // conversion for the streaming data loader. FFT-based ops (resample,
-// cross-correlation) intentionally live on the TPU (ops/correlate.py) or
+// cross-correlation) intentionally live on the device (ops/correlate.py) or
 // in numpy f64 (ops/hostref.py) — re-deriving an FFT here would buy
 // nothing.
 //

@@ -3,13 +3,17 @@
 Mirrors the reference's backend-independent test strategy (reference:
 tests use synthetic BytesIO streams; SURVEY.md §4): all engine/parity tests
 run on CPU so they execute anywhere; multi-device sharding tests use the
-virtual host-device mesh. Set APD_TPU_TESTS=1 to run on real TPU instead.
+virtual host-device mesh. Set APD_GPU_TESTS=1 to keep JAX's own platform
+choice instead (the GPU on a machine with a card), which is how the
+``gpu``-marked tests run.
 """
 
 import os
 import sys
 
-if os.environ.get("APD_TPU_TESTS") != "1":
+import pytest
+
+if os.environ.get("APD_GPU_TESTS") != "1":
     flags = os.environ.get("XLA_FLAGS", "")
     if "xla_force_host_platform_device_count" not in flags:
         os.environ["XLA_FLAGS"] = (
@@ -27,3 +31,15 @@ if REPO_ROOT not in sys.path:
     sys.path.insert(0, REPO_ROOT)
 
 SAMPLE_AUDIOS = os.path.join(REPO_ROOT, "sample_audios")
+
+
+@pytest.fixture(scope="session")
+def gpu_device():
+    """The first CUDA device, or skip. Decided inside the test (never at
+    import), so every xdist worker collects the same tests."""
+    import jax
+
+    devices = jax.devices()
+    if devices[0].platform != "gpu":
+        pytest.skip(f"needs a GPU; JAX platform is {devices[0].platform}")
+    return devices[0]

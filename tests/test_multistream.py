@@ -136,8 +136,8 @@ class TestMultiStreamSession:
         assert fast.total_time(0) == ref.total_time(0)
 
     def test_scan_and_vmap_modes_identical(self, clips, stream_audios):
-        """batch_mode='scan' (the single-device default — measured ~20%
-        faster per chunk on TPU) and 'vmap' produce identical per-stream
+        """batch_mode='scan' (the single-device default) and 'vmap'
+        produce identical per-stream
         results round by round: the scan body carries no state across
         rows, so the mode is purely an execution schedule."""
         det_s = AudioPatternDetector(audio_clips=clips, seconds_per_chunk=CHUNK_S)

@@ -274,7 +274,7 @@ class TestGreedySurvivorsBlockwise:
 
     def test_seed_gather_mismatch_degrades_to_overflow(self):
         """A block summary that disagrees with its gather (possible only
-        through caller bugs or the Pallas raw-vs-quotient rounding edge)
+        through a caller bug)
         must surface as overflow=True — routing the row to the exact
         rerun — never as a silently wrong survivor, while healthy rows in
         the same batch are unaffected."""
@@ -607,62 +607,63 @@ class TestDeviceVerifyMarker:
         assert bool(dev[0, 0]) is True
         assert bool(dev[1, 0]) is False
 
-    def test_gemm_spectra_same_decisions(self, monkeypatch):
-        """The DFT-GEMM spectra path (TPU default) reaches the same
-        accept/reject decisions as the backend-FFT path on clean-accept,
-        dirty-flank, and wrong-frequency candidates, and its per-frame
-        purity stays within f32 DFT noise of the FFT path's."""
+    @pytest.mark.parametrize("m", [1827, 2000])
+    def test_whole_window_spectra_match_host_f64(self, m):
+        """marker_spectra's flank/match |rfft| equals the f64 host
+        spectra of the same windows to f32 FFT accuracy (relative to each
+        candidate's largest magnitude), at candidates inside and near both
+        edges."""
+        from audio_pattern_detector_tpu.ops.verify import marker_spectra
+
         freq = 1040.0
-        m = round(0.228375 * SR)
-        t = np.arange(m) / SR
-        tone = np.sin(2 * np.pi * freq * t).astype(np.float32)
-        rng = np.random.default_rng(7)
-        S = 2 * SR
-
-        secs = []
-        sec = (0.001 * rng.standard_normal(S)).astype(np.float32)
-        sec[4000 : 4000 + m] += 0.7 * tone
-        secs.append((sec, 4000 + m - 1))
-        tt = np.arange(3 * m) / SR
-        sec2 = (0.001 * rng.standard_normal(S)).astype(np.float32)
-        sec2[3000 : 3000 + 3 * m] += 0.7 * np.sin(
-            2 * np.pi * freq * tt
+        rng = np.random.default_rng(5)
+        sec = (0.05 * rng.standard_normal(2 * SR)).astype(np.float32)
+        sec[5000 : 5000 + m] += 0.7 * np.sin(
+            2 * np.pi * freq * np.arange(m) / SR
         ).astype(np.float32)
-        secs.append((sec2, 3000 + 2 * m - 1))
-        sec3 = (0.001 * rng.standard_normal(S)).astype(np.float32)
-        sec3[4000 : 4000 + m] += 0.7 * np.sin(
-            2 * np.pi * freq * 1.3 * t
-        ).astype(np.float32)
-        secs.append((sec3, 4000 + m - 1))
-
+        pos = np.array([5000 + m - 1, m // 2, 2 * SR - 3], dtype=np.int32)
         consts = build_marker_verify_consts(m, SR, np.array([freq]), [{}])
-        for sec, peak in secs:
-            args = (
-                jnp.asarray(sec),
-                jnp.asarray([[peak]], dtype=jnp.int32),
-                jnp.asarray([[True]]),
-                consts,
-            )
-            monkeypatch.setenv("APD_MARKER_GEMM", "0")
-            fft_dec = bool(np.asarray(verify_marker(*args))[0, 0])
-            monkeypatch.setenv("APD_MARKER_GEMM", "1")
-            gemm_dec = bool(np.asarray(verify_marker(*args))[0, 0])
-            assert gemm_dec == fft_dec
+        spec, _ = marker_spectra(
+            jnp.asarray(sec), jnp.asarray(pos[None, :]), consts
+        )
+        want, _ = hostref.marker_spectra(sec, pos, m, SR)
+        got = np.asarray(spec)[0]
+        scale = want.max(axis=(-2, -1), keepdims=True)  # per candidate
+        assert got.shape == want.shape
+        assert float((np.abs(got - want) / scale).max()) <= 1e-4
 
-    def test_gemm_power_matches_fft_power(self):
-        """_rfft_power_gemm equals |rfft|^2 to f32 DFT accuracy."""
-        from audio_pattern_detector_tpu.ops.verify import _rfft_power_gemm
+    @pytest.mark.parametrize("m", [1827, 2000])
+    def test_frame_spectra_match_host_f64(self, m):
+        """The 25 ms frame spectra of the matched segment, same bound."""
+        from audio_pattern_detector_tpu.ops.verify import marker_spectra
 
-        rng = np.random.default_rng(3)
-        for n in (200, 1827):
-            x = rng.standard_normal((4, n)).astype(np.float32)
-            want = np.abs(np.fft.rfft(x.astype(np.float64), axis=-1)) ** 2
-            got = np.asarray(_rfft_power_gemm(jnp.asarray(x), n))
-            scale = float(want.max())
-            assert np.allclose(got, want, atol=5e-4 * scale, rtol=5e-3), (
-                n,
-                float(np.abs(got - want).max() / scale),
-            )
+        rng = np.random.default_rng(9)
+        sec = (0.1 * rng.standard_normal(2 * SR)).astype(np.float32)
+        pos = np.array([4000 + m - 1, 9000], dtype=np.int32)
+        consts = build_marker_verify_consts(m, SR, np.array([900.0]), [{}])
+        _, fspec = marker_spectra(
+            jnp.asarray(sec), jnp.asarray(pos[None, :]), consts
+        )
+        _, want = hostref.marker_spectra(sec, pos, m, SR)
+        got = np.asarray(fspec)[0]
+        assert got.shape == want.shape
+        scale = want.max(axis=(-2, -1), keepdims=True)  # per candidate
+        assert float((np.abs(got - want) / scale).max()) <= 1e-4
+
+    def test_short_clip_has_no_frames(self):
+        """A clip shorter than one 25 ms frame has no frame spectra on
+        either side."""
+        from audio_pattern_detector_tpu.ops.verify import marker_spectra
+
+        m = 150  # < 200-sample frame at 8 kHz
+        sec = np.zeros(SR, np.float32)
+        consts = build_marker_verify_consts(m, SR, np.array([1000.0]), [{}])
+        spec, fspec = marker_spectra(
+            jnp.asarray(sec), jnp.asarray([[400]], dtype=jnp.int32), consts
+        )
+        _, want = hostref.marker_spectra(sec, np.array([400]), m, SR)
+        assert fspec is None and want is None
+        assert np.asarray(spec).shape == (1, 1, 3, m // 2 + 1)
 
 
 class TestOverlapSaveCorrelation:

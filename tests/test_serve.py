@@ -739,8 +739,8 @@ class TestPatternServer:
             # Cadence held: the 1×-paced stream finished within a few
             # chunk periods of the audio duration (generous CPU-CI
             # bound — a loaded single-core xdist worker adds scheduler
-            # latency; on TPU the tail is one round latency, ≪ a
-            # chunk, and the round-4 failure mode this guards against
+            # latency; on the device the tail is one round latency, ≪
+            # a chunk, and the failure mode this guards against
             # was minutes of slip).
             assert walls[i] < stream_s + 4 * CHUNK_S, (
                 f"client {i} slipped: {walls[i]:.2f}s for {stream_s}s"

@@ -204,24 +204,62 @@ class TestGetAudioDuration:
 
 
 class TestCompileCache:
+    @pytest.fixture
+    def restore_cache_config(self):
+        import jax
+
+        saved = (
+            jax.config.jax_compilation_cache_dir,
+            jax.config.jax_persistent_cache_min_compile_time_secs,
+        )
+        yield
+        jax.config.update("jax_compilation_cache_dir", saved[0])
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", saved[1])
+
     def test_off_switch_disables(self, monkeypatch):
         from audio_pattern_detector_tpu.utils.compile_cache import (
             enable_persistent_cache,
         )
 
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
         for off in ("off", "0", "none", ""):
             monkeypatch.setenv("APD_COMPILE_CACHE", off)
             assert enable_persistent_cache() is None
 
-    def test_custom_dir_is_created_and_configured(self, monkeypatch, tmp_path):
+    def test_custom_dir_is_created_and_configured(
+        self, monkeypatch, tmp_path, restore_cache_config
+    ):
+        """Without JAX_COMPILATION_CACHE_DIR the cache goes to the one
+        fixed directory (here redirected to a temporary one)."""
         import jax
 
-        from audio_pattern_detector_tpu.utils.compile_cache import (
-            enable_persistent_cache,
-        )
+        from audio_pattern_detector_tpu.utils import compile_cache
 
         target = str(tmp_path / "xla_cache")
-        monkeypatch.setenv("APD_COMPILE_CACHE", target)
-        assert enable_persistent_cache() == target
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        monkeypatch.delenv("APD_COMPILE_CACHE", raising=False)
+        monkeypatch.setattr(compile_cache, "DEFAULT_DIR", target)
+        assert compile_cache.enable_persistent_cache() == target
         assert os.path.isdir(target)
         assert jax.config.jax_compilation_cache_dir == target
+
+    def test_env_dir_is_honoured_and_nothing_set(
+        self, monkeypatch, tmp_path, restore_cache_config
+    ):
+        import jax
+
+        from audio_pattern_detector_tpu.utils import compile_cache
+
+        before = jax.config.jax_compilation_cache_dir
+        env_dir = str(tmp_path / "from_env")
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_dir)
+        monkeypatch.setenv("APD_COMPILE_CACHE", "off")  # env var wins
+        assert compile_cache.enable_persistent_cache() == env_dir
+        assert jax.config.jax_compilation_cache_dir == before
+        assert not os.path.exists(env_dir)  # JAX creates it, not us
+
+    def test_default_dir_is_fixed_inside_checkout(self):
+        from audio_pattern_detector_tpu.utils import compile_cache
+        from tests.conftest import REPO_ROOT
+
+        assert compile_cache.DEFAULT_DIR == os.path.join(REPO_ROOT, ".jax_cache")
